@@ -1,6 +1,6 @@
 // voxio — native data-loading runtime for voxtracer.
 //
-// TPU-native counterpart of the reference's C++ asset path (ogt_vox parser
+// Host-side counterpart of the reference's C++ asset path (ogt_vox parser
 // + stb image, lib/ogt_vox.h + lib/stb_image.h): a small, dependency-free
 // shared library doing the hot host-side work — MagicaVoxel RIFF parsing
 // (including the IMAP display-order remap and palette rotation semantics,

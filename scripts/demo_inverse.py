@@ -8,7 +8,7 @@ Adam until the render matches.  Saves before/target/after PNGs into
 artifacts/ — evidence the differentiable path drives real optimization,
 not just a gradient bench.
 
-Runs on the attached TPU (or CPU with JAX_PLATFORMS=cpu, slower).
+Runs on the attached GPU (or CPU with JAX_PLATFORMS=cpu, slower).
 """
 
 import os

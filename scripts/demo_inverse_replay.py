@@ -2,10 +2,10 @@
 """Inverse rendering on the FAST replay path (diff/replay_active.py):
 recover perturbed material albedos AND a thinned volume's density from
 target images, using the precomputed frozen-geometry gradient step
-(2.9 Mrays/s at 1080p; this demo runs 384x216 for a ~30 s optimization).
+(this demo runs 384x216).
 
 Writes artifacts/inverse_replay_{target,init,recovered}.png and
-artifacts/INVERSE_REPLAY_r05.json (loss trajectory).
+artifacts/INVERSE_REPLAY.json (loss trajectory).
 """
 import dataclasses
 import json
@@ -17,11 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-cache_dir = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", cache_dir)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+from voxtracer.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -133,7 +131,7 @@ def main():
         "optimize_seconds": round(opt_s, 1),
         "ms_per_step": round(opt_s / 80 * 1e3, 1),
     }
-    with open(os.path.join(ART, "INVERSE_REPLAY_r05.json"), "w") as f:
+    with open(os.path.join(ART, "INVERSE_REPLAY.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
     assert loss1 < loss0 * 0.15, (loss0, loss1)

@@ -4,6 +4,8 @@
 Runs the scalar NumPy oracle live for every cached golden test — slow by
 design (the room configs take ~10 min each); run after any INTENTIONAL
 change to renderer semantics, then commit the refreshed .npz files.
+
+    python scripts/regen_goldens.py [SUBSTRING]   # only matching tests
 """
 
 import os
@@ -21,5 +23,7 @@ tests = [
     "tests/test_golden.py::test_primary_monu_matches_oracle",
     "tests/test_golden.py::test_primary_city_matches_oracle",
 ]
+if len(sys.argv) > 1:
+    tests = [t for t in tests if sys.argv[1] in t]
 sys.exit(subprocess.call([sys.executable, "-m", "pytest", "-q", "-x",
                           *tests]))

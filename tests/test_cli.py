@@ -8,9 +8,9 @@ import pytest
 from voxtracer.cli import main
 from voxtracer.io.image import read_png
 
-# minutes-scale on a 2-vCPU box (interpret-mode Pallas kernels, golden
-# renders, multi-second jit compiles): long-lane only, the fast CI gate
-# runs `-m 'not slow'` (pyproject.toml marker)
+# minutes-scale on a 2-vCPU box (golden renders, multi-second jit
+# compiles): long-lane only, the fast CI gate runs `-m 'not slow'`
+# (pyproject.toml marker)
 pytestmark = pytest.mark.slow
 
 

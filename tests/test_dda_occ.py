@@ -11,9 +11,9 @@ from voxtracer.core.types import GLASS, MAT_NONE, SMOKE_MID_DENSITY
 from voxtracer.kernels import dda, dda_occ
 from voxtracer.scene.instances import VolumeSpec, build_volumes
 
-# minutes-scale on a 2-vCPU box (interpret-mode Pallas kernels, golden
-# renders, multi-second jit compiles): long-lane only, the fast CI gate
-# runs `-m 'not slow'` (pyproject.toml marker)
+# minutes-scale on a 2-vCPU box (golden renders, multi-second jit
+# compiles): long-lane only, the fast CI gate runs `-m 'not slow'`
+# (pyproject.toml marker)
 pytestmark = pytest.mark.slow
 
 

@@ -14,9 +14,9 @@ from voxtracer.diff.volumetric import params_from_scene
 from voxtracer.render.integrator import render
 from voxtracer.scene import presets
 
-# minutes-scale on a 2-vCPU box (interpret-mode Pallas kernels, golden
-# renders, multi-second jit compiles): long-lane only, the fast CI gate
-# runs `-m 'not slow'` (pyproject.toml marker)
+# minutes-scale on a 2-vCPU box (golden renders, multi-second jit
+# compiles): long-lane only, the fast CI gate runs `-m 'not slow'`
+# (pyproject.toml marker)
 pytestmark = pytest.mark.slow
 
 

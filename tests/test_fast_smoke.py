@@ -1,6 +1,6 @@
 """Fast-gate smoke coverage: one tiny render + one tiny gradient.
 
-The heavy suites (interpret-mode Pallas parity, golden oracles,
+The heavy suites (golden oracles, gradient parity,
 multi-second whitted/path compiles) are all `slow`-marked for the long
 lane; this module keeps the fast gate (`-m "not slow"`, target <120 s on
 2 vCPUs) exercising the integrator and the differentiable march at all —

@@ -1,4 +1,4 @@
-"""Golden-image tests: jitted TPU integrators vs the NumPy oracle
+"""Golden-image tests: jitted integrators vs the NumPy oracle
 (SURVEY.md §4 item 3; BASELINE metric "image allclose vs CPU ref").
 
 Comparison policy: both pipelines are float32 with intentionally unstable
@@ -19,9 +19,9 @@ from voxtracer.ref.cpu_renderer import Oracle
 from voxtracer.render.integrator import render
 from voxtracer.scene import presets
 
-# minutes-scale on a 2-vCPU box (interpret-mode Pallas kernels, golden
-# renders, multi-second jit compiles): long-lane only, the fast CI gate
-# runs `-m 'not slow'` (pyproject.toml marker)
+# minutes-scale on a 2-vCPU box (golden renders, multi-second jit
+# compiles): long-lane only, the fast CI gate runs `-m 'not slow'`
+# (pyproject.toml marker)
 pytestmark = pytest.mark.slow
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "goldens"
@@ -125,8 +125,9 @@ def test_path_converged_mean_matches_oracle():
     assert diff < 0.03, f"converged path means differ: {diff}"
 
 
-def test_primary_monu_matches_oracle(assets_dir):
-    """BASELINE config 4 scene (reduced res, primary visibility)."""
+def test_primary_monu_matches_oracle():
+    """BASELINE config 4 scene (seeded monuments, reduced res, primary
+    visibility)."""
     scene, cfg = presets.monu_path(width=32, height=32, gridsize=64,
                                    which=(1, 2, 3), bounces=2)
     cfg = dataclasses.replace(cfg, mode="primary")

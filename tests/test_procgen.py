@@ -33,3 +33,30 @@ def test_smoke_grid_is_smoke_only_ellipsoid():
     assert (g != MAT_NONE).sum() > 50  # some smoke exists
     # corners empty (outside the ellipsoid)
     assert g[0, 0, 0] == MAT_NONE and g[-1, -1, -1] == MAT_NONE
+
+
+def test_monu_scene_is_seeded_and_complete():
+    """The flagship scene comes from the in-repo generator: same seed, same
+    voxels; three 64^3 models plus the 1-cell floor slab; and every model
+    holds diffuse palette stone, metal, glass, smoke and emissive voxels."""
+    from voxtracer.core.types import EMISSIVE, GLASS, METAL_HIGH, METAL_LOW
+    from voxtracer.scene.presets import monu_path
+
+    a, cfg = monu_path(width=64, height=36)
+    b, _ = monu_path(width=64, height=36)
+    grids = np.asarray(a.volumes.grids)
+    np.testing.assert_array_equal(grids, np.asarray(b.volumes.grids))
+    assert grids.shape == (4, 64, 64, 64)
+    assert list(np.asarray(a.volumes.gridsize)) == [64, 64, 64, 1]
+    assert grids[3, 0, 0, 0] == METAL_LOW  # floor slab
+    assert cfg.mode == "path" and cfg.max_bounces == 4
+    albedo = np.asarray(a.materials.albedo)
+    for m in range(3):
+        g = grids[m]
+        assert (g == GLASS).any() and (g == EMISSIVE).any()
+        assert ((g >= SMOKE_LOW_DENSITY) & (g <= SMOKE_HIGH_DENSITY)).any()
+        assert ((g >= METAL_HIGH) & (g <= METAL_LOW)).any()
+        stone = np.unique(g[(g > EMISSIVE) & (g != MAT_NONE)])
+        assert len(stone) == 4
+        assert not np.allclose(albedo[stone], 1.0)  # palette applied
+        assert 0.05 < (g != MAT_NONE).mean() < 0.5  # a mass, not a fill

@@ -9,14 +9,13 @@ Monte-Carlo noise, and the final un-permutation must restore pixel order
 (reference behavior: renderer.cpp:1076-1328's estimator does not depend
 on ray processing order).
 
-The chunked dispatch itself measured 2.0x NET-NEGATIVE on city-XL
-(PERF_NOTES round-5c: the SMEM dead-block gate already makes dead lanes
-~free after re-clustering) and defaults OFF; these tests keep the
-negative result reproducible.
+The chunked dispatch itself measured net-negative on city-XL where it
+was first tried (PERF.md, negative results) and defaults OFF; these tests
+keep the negative result reproducible.
 
-Scene stays small (8 volumes, unpaged — bounce_reorder="always" does not
-need pages): the 66-volume paged fixture compiles ~10 min of XLA under
-the 8-virtual-device conftest, far past the slow-lane budget."""
+Scene stays small (8 volumes; bounce_reorder="always" forces the
+re-clustered loop): a 66-volume scene compiles for minutes under the
+8-virtual-device conftest, far past the slow-lane budget."""
 
 import dataclasses
 

@@ -22,9 +22,9 @@ from voxtracer.scene.materials import default_materials
 from voxtracer.scene.presets import _assemble
 from voxtracer.scene.volume import solid_grid
 
-# minutes-scale on a 2-vCPU box (interpret-mode Pallas kernels, golden
-# renders, multi-second jit compiles): long-lane only, the fast CI gate
-# runs `-m 'not slow'` (pyproject.toml marker)
+# minutes-scale on a 2-vCPU box (golden renders, multi-second jit
+# compiles): long-lane only, the fast CI gate runs `-m 'not slow'`
+# (pyproject.toml marker)
 pytestmark = pytest.mark.slow
 
 

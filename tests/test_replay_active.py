@@ -1,7 +1,6 @@
 """Active (precomputed, span-binned) replay gradients vs the full replay
-estimator and finite differences (diff/replay_active.py, VERDICT r4 item
-3b: the 1080p bench line is artifacts/BENCH_REPLAY_r05.json — 2.9 Mrays/s
-with FD rel err 0.5%; these are the small-scale structural guards)."""
+estimator and finite differences (diff/replay_active.py); these are the
+small-scale structural guards."""
 
 import dataclasses
 

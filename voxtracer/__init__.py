@@ -1,11 +1,12 @@
-"""voxtracer — a TPU-native differentiable voxel ray/path tracer.
+"""voxtracer — a differentiable voxel ray/path tracer in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
 CPU renderer (Tycro-Games/Raytracer-VoxPopuli): MagicaVoxel .vox scenes
-become batched dense voxel grids traversed by vectorized/Pallas 3D-DDA
-(Amanatides–Woo) kernels; the recursive Trace/Illumination shading loop is a
-wavefront (iterative, masked) megakernel under `jax.jit`; rays shard across
-TPU device meshes via `jax.sharding`; voxel-density/albedo gradients flow
+become batched dense voxel grids traversed by 3D-DDA (Amanatides–Woo)
+kernels — a Pallas kernel on the GPU, vectorized XLA on the CPU; the
+recursive Trace/Illumination shading loop is a wavefront (iterative,
+masked) megakernel under `jax.jit`; rays shard across device meshes via
+`jax.sharding`; voxel-density/albedo gradients flow
 through a relaxed transmittance integrator.
 
 Layout (see SURVEY.md §7):

@@ -1,6 +1,6 @@
 """CLI entry — render / play / bench / info.
 
-The TPU-native replacement of the reference's GLFW app shell + frame loop
+The headless replacement of the reference's GLFW app shell + frame loop
 (template.cpp:126-329): no window, no GL — render frames to PNG, run the
 game headless, or benchmark.  `python -m voxtracer.cli --help`."""
 
@@ -258,6 +258,9 @@ def main(argv=None):
     i.set_defaults(fn=cmd_info)
 
     args = p.parse_args(argv)
+    from voxtracer.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

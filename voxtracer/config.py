@@ -45,15 +45,14 @@ class RenderConfig:
     # path mode wavefront compaction: between bounces, partition surviving
     # rays to a prefix (stable cumsum partition) and trace fixed-width
     # chunks of n // compact_chunks in a nested while_loop — terminated
-    # rays stop paying lockstep traversal cost.  DEFAULT OFF since round 2:
-    # the Pallas traversal early-exits per 2048-ray block on its own, and
-    # the compaction permutation costs more than it saves (measured 876 vs
-    # 511 ms at 1080p monu, scripts/profile_frame.py).  Retained for the
-    # XLA traversal path (CPU / >64-volume scenes), where it still wins.
-    # Only applied when the ray batch is >= compact_min and divisible by
-    # compact_chunks; sharded multi-device renders should keep compact_min
-    # above their per-render ray count (the partition would otherwise emit
-    # cross-device collectives).
+    # rays stop paying lockstep traversal cost.  DEFAULT OFF: a per-tile
+    # traversal kernel already stops work on finished tiles, and the
+    # compaction permutation plus per-chunk dispatch cost more than they
+    # saved where this was last measured.  Only applied when the ray
+    # batch is >= compact_min and divisible by compact_chunks; sharded
+    # multi-device renders should keep compact_min above their per-render
+    # ray count (the partition would otherwise emit cross-device
+    # collectives).
     compact_chunks: int = 1
     compact_min: int = 65536
     # game light-kill detection (renderer.cpp:1437-1450): when a path-mode
@@ -66,53 +65,45 @@ class RenderConfig:
     light_kill_threshold: float = 16.0
     # Sampler for the stochastic integrator streams: "hash" (counter-based
     # PCG hash, core/rng.py — the reference's xorshift-class cost,
-    # deterministic; ~30 ms/frame cheaper at 1080p x 4 bounces) or
+    # deterministic, a few integer ops per value) or
     # "threefry" (jax.random; same estimators, different sample values —
     # kept for tests that pin jax.random streams).
     rng: str = "hash"
     # Secondary-ray reordering between path bounces: "auto" sorts the
     # wavefront by (terminated, origin-morton | direction-octant) before
-    # each bounce >= 1 on PAGED scenes (>64 volumes) — diffuse-bounced
-    # rays are spatially incoherent, which defeats both tile clustering
-    # and per-ray page culling (city-XL round 4: bounces 1-4 cost
-    # ~190 ms each vs 80 ms for bounce 0); re-clustering restores the
-    # dead-block and page-cull wins.  "always" forces it, "none" disables.
+    # each bounce >= 1 on scenes of more than 64 volumes — diffuse-bounced
+    # rays are spatially incoherent, which defeats tile clustering and
+    # makes a block's slowest ray set its cost; re-clustering restores
+    # coherent blocks.  The 64-volume threshold is kept from the design
+    # this was first measured in; no measurement on the GPU has set it
+    # yet.  "always" forces it, "none" disables.
     # Pure dispatch order: per-lane estimators are unchanged; stochastic
     # streams reassign which lane draws which sample.
     bounce_reorder: str = "auto"
-    # re-sort every k-th bounce (1 = every bounce).  The permute now runs
-    # as chunked <=8-column row gathers (integrator.take_rows: a single
-    # [n,22] take costs 62 ms at 1080p, three <=8-wide takes 10.5 ms —
-    # scripts/probe_sortperm.py); even so, a measured period-1 sweep
-    # LOSES to period 2 (931.9 vs 887.9 ms city-XL r05): origins drift
-    # slowly bounce-to-bounce, so clustering decays gently and the extra
-    # sorts buy less than they cost.
+    # re-sort every k-th bounce (1 = every bounce).  The permute runs as
+    # chunked <=8-column row gathers (integrator.take_rows).  Origins
+    # drift slowly bounce-to-bounce, so clustering decays gently and
+    # period 1's extra sorts bought less than they cost where this was
+    # first measured.
     bounce_reorder_period: int = 2
     # live-prefix chunking of the REORDERED bounce loop: the morton key
     # already sorts terminated rays to the tail, so after each re-sort
     # the live rays are a prefix — with k > 1 each bounce dispatches
     # n/k-wide chunks and stops at the last live lane instead of walking
-    # the full width.  Late bounces (survival ~20-30%) then traverse the
-    # paged kernel at a fraction of the width.  Unlike compact_chunks
-    # (net-negative on monu: per-chunk dispatch of a cheap kernel), the
-    # paged city-XL bounce is expensive enough to amortize the extra
-    # dispatches.  1 = off.
+    # the full width, so late bounces traverse at a fraction of the
+    # width.  Each chunk is one more dispatch; 1 = off.
     reorder_compact_chunks: int = 1
     # Whitted queue batch re-clustering: sort each iteration's [W] branch
     # batch by (live, origin-morton | direction-octant) before traversal.
     # The queue mixes branch generations after a few pops, which defeats
-    # the lockstep blocks exactly like path bounces do; the batch sort is
-    # ~2 ms against a measured ~170 ms traversal floor (room 512^2).
-    # Changes only per-pixel radiance summation order (adds commute to
-    # rounding).
+    # the lockstep blocks exactly like path bounces do.  Changes only
+    # per-pixel radiance summation order (adds commute to rounding).
     whitted_sort_batch: bool = False
     # Ray dispatch order inside a render band: "scanline" (row-major) or
-    # "tile" (8x128-pixel tiles, one per 1024-lane Pallas block).  The
-    # Pallas traversal runs each block in lockstep until its slowest lane
-    # finishes; scanline blocks span half a 1080p row and pay the
-    # cross-image trip-count tail (measured block-trip mean 5.35 vs
-    # per-ray mean 2.40, PERF_NOTES round-4), while spatially-compact
-    # tiles cut the nearest pass 12.9 -> 8.6 ms (1.5x).  Pure dispatch
+    # "tile" (8x128-pixel tiles).  A traversal block runs until its
+    # slowest lane finishes; a block of consecutive rays then holds
+    # neighbouring pixels, whose walks take similar trip counts, where a
+    # scanline block would mix far-apart ones.  Pure dispatch
     # order: per-pixel estimators are unchanged (deterministic modes are
     # bit-identical; stochastic modes reassign which lane gets which
     # jitter sample).  Falls back to scanline when width % 128 != 0.

@@ -2,7 +2,7 @@
 
 Every function here is written against the generic array API (`jnp` or
 `np` passed as ``xp``) so the golden CPU oracle (ref/cpu_renderer.py) and the
-jitted TPU path use literally the same formulas — this is what makes the
+jitted path use literally the same formulas — this is what makes the
 allclose golden tests meaningful.
 
 Replicates the reference's fast approximations and self-intersection offset

@@ -2,14 +2,12 @@
 
 The reference uses a thread-local xorshift32 seeded by WangHash
 (tmpl8math.cpp:16-38,119-133) — fast, stateful, irreproducible across
-runs.  The TPU build's default sampler (`jax.random`, threefry) is
-deterministic but costs ~37 ms/frame at 1080p x 4 bounces (round-3
-ablation): ~14 wide streams per bounce at ~1 ns/element of pure counter
-cipher.
+runs.  JAX's default sampler (`jax.random`, threefry) is deterministic
+but runs a counter cipher for each of ~14 wide streams per bounce.
 
 This module is the middle path: a stateless PCG-style integer hash over
-(key, salt, counter) — deterministic like threefry, ~20x cheaper (a few
-VPU int ops per value), with the statistical quality rendering needs
+(key, salt, counter) — deterministic like threefry, a few integer ops
+per value, with the statistical quality rendering needs
 (PCG output permutation, the standard choice in GPU path tracers).  It is
 NOT crypto-grade; estimator semantics are unchanged (same distributions,
 different sample values), selected via RenderConfig.rng.
@@ -19,12 +17,15 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 F32 = jnp.float32
 U32 = jnp.uint32
 
-_GOLDEN = jnp.uint32(0x9E3779B9)
-_PRIME1 = jnp.uint32(0x85EBCA6B)
+# NumPy scalars, not device arrays: traces take them as literals instead
+# of capturing module-level arrays as constants
+_GOLDEN = np.uint32(0x9E3779B9)
+_PRIME1 = np.uint32(0x85EBCA6B)
 
 
 def _pcg(x):
@@ -39,7 +40,7 @@ def key_seed(key) -> jnp.ndarray:
     """Collapse a jax PRNG key to one uint32 seed scalar (cheap; the key
     machinery still provides the fold_in tree structure above us).
     Words mix through _pcg rounds, not linear combination, so nearby
-    keys select unrelated hash functions (ADVICE r4)."""
+    keys select unrelated hash functions."""
     kd = jax.random.key_data(key).astype(U32).reshape(-1)
     s = _pcg(kd[0])
     for i in range(1, kd.shape[0]):
@@ -55,7 +56,7 @@ def hash_bits(key, salt: int, shape) -> jnp.ndarray:
     counter offsets of one global sequence (additively-mixed salts put
     every stream on one PCG orbit: two streams whose offsets landed
     within the lane count of each other repeated sample values
-    lane-for-lane — ADVICE r4).  The extra round is scalar work, not
+    lane-for-lane).  The extra round is scalar work, not
     per-element."""
     seed = key_seed(key)
     n = 1

@@ -1,4 +1,4 @@
-"""Scene pytrees — SoA arrays, TPU-first.
+"""Scene pytrees — SoA arrays.
 
 The reference keeps scenes as C++ object graphs (shared_ptr<Material>
 tables, vector<Scene> volumes, renderer.h:160-246); here everything is a
@@ -13,7 +13,8 @@ renderer.cpp:434-442); entry 255 is the empty/NONE slot.
 from __future__ import annotations
 
 import numpy as np
-from flax import struct
+
+from voxtracer.core import pytree
 
 MAT_NONE = 255
 
@@ -36,7 +37,7 @@ SMOKE_PLAYER = 14
 EMISSIVE = 15
 
 
-@struct.dataclass
+@pytree.dataclass
 class Materials:
     """SoA material bank — the differentiable parameter set.
 
@@ -49,7 +50,7 @@ class Materials:
     ior: np.ndarray  # [256] f32
 
 
-@struct.dataclass
+@pytree.dataclass
 class Lights:
     """All light banks; the single directional light always exists
     (reference: renderer.cpp:2290-2296 counts it unconditionally)."""
@@ -85,14 +86,14 @@ class Lights:
         return self.n_point + self.n_spot + self.n_area + 1
 
 
-@struct.dataclass
+@pytree.dataclass
 class Spheres:
     center: np.ndarray  # [N, 3]
     radius: np.ndarray  # [N]
     material: np.ndarray  # [N] i32
 
 
-@struct.dataclass
+@pytree.dataclass
 class Triangles:
     """Positioned triangles (reference: src/BVH/Shapes.h:71-145)."""
 
@@ -103,12 +104,12 @@ class Triangles:
     material: np.ndarray  # [N] i32
 
 
-@struct.dataclass
+@pytree.dataclass
 class VoxVolumes:
     """Batched voxel-volume instances.
 
     Every instance's dense grid is padded to one static cube size G so the
-    whole set is a single [V, G, G, G] array (gather-friendly on TPU);
+    whole set is a single [V, G, G, G] array (one gather table);
     per-instance logical gridsize masks traversal.  Object space is the unit
     cube [cube_min, cube_min+1] (reference: scene.cpp:213-217); rays are
     taken world->object by `inv`, normals object->world by `fwd`
@@ -126,41 +127,10 @@ class VoxVolumes:
     bricksize: np.ndarray  # [V] i32 logical macro size (ceil(gridsize/8))
     # bit-packed per-brick occupancy: 512 bits (one per 8^3 cell) in 16
     # int32 words, LSB-first, bit index b = (fx*8+fy)*8+fz for the local
-    # cell (fx,fy,fz).  Three predicate planes (OCC_* indices below):
-    # the traversal fetches ONE row per brick crossing (a [T,16] row
-    # gather is ~3x cheaper per index than 1-D take on this hardware,
-    # PERF_NOTES.md) and then steps cell-by-cell with register bit tests.
+    # cell (fx,fy,fz).  Three predicate planes (OCC_* indices below): the
+    # traversal reads one row per brick crossing and then steps
+    # cell-by-cell with bit tests.
     occ: np.ndarray  # [3, V, M^3, 16] int32
-    # instance TLAS (midpoint-split BVH over world AABBs — the reference's
-    # dormant BasicBVH, renderer.h:220, made queryable): flat node arrays
-    # traversal when VOXTRACER_TLAS=1 (measured: the dense per-ray slab
-    # test beats the lockstep BVH walk below ~100 instances on this chip —
-    # see PERF_NOTES.md — so the BVH path is opt-in, correctness-verified
-    # compacted plane-0 occupancy for the Pallas traversal: most bricks are
-    # empty, so the descend fetch chains over occupied rows only (measured:
-    # monu 16 -> 5 chain blocks, city 68 -> 8).  occ_slot maps brick ->
-    # compact row; occ_rows0 holds the occupied bricks' 512-bit rows,
-    # padded to a multiple of 128.
-    occ_slot: np.ndarray = None  # [V, M^3] i32
-    occ_rows0: np.ndarray = None  # [Bpad, 16] i32
-    # per-volume <=16-entry material palette + 4-bit per-cell palette ranks
-    # packed per occupied brick (same compaction/slot space as occ_rows0):
-    # lets the Pallas traversal return the hit MATERIAL directly and kills
-    # the per-bounce 2M-row XLA `take(grids_flat, gidx)` (~14 ms at 1080p).
-    # None when any volume exceeds 16 distinct materials (XLA take
-    # fallback keeps full generality).
-    pal: np.ndarray = None       # [V, 16] i32 material ids
-    pal_rows0: np.ndarray = None  # [Bpad, 64] i32, 8 ranks x 4 bits/word
-    # large-V paging (scene/instances.py paginate_volumes): tuple of
-    # child VoxVolumes (<= ~24 volumes each, own compact tables) that the
-    # Pallas traversal walks page-by-page and min-merges; None below the
-    # paging threshold.  The parent's arrays stay complete either way.
-    pages: tuple = None
-    # this page's first ORIGINAL volume index (static metadata, set by
-    # paginate_volumes): pages may be WALKED biggest-occluders-first so
-    # the running best t culls later pages, and the merge restores global
-    # volume ids + the original-index tie-break from this offset
-    vol_off: int = struct.field(pytree_node=False, default=0)
 
     @property
     def n(self) -> int:
@@ -177,7 +147,7 @@ OCC_EXIT_GLASS = 1   # cell != GLASS               (FindMaterialExit leave)
 OCC_EXIT_SMOKE = 2   # cell outside smoke range    (FindSmokeExit leave)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Sky:
     """Equirect HDR dome + scale (reference: renderer.cpp:2308-2326)."""
 
@@ -185,7 +155,7 @@ class Sky:
     contribution: np.ndarray  # scalar f32 (HDRLightContribution)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Camera:
     """Frustum-corner pinhole + thin lens (reference: template/camera.h)."""
 
@@ -200,7 +170,7 @@ class Camera:
     defocus_jitter: np.ndarray  # scalar
 
 
-@struct.dataclass
+@pytree.dataclass
 class SceneData:
     """The complete world handed to integrators (JAX or oracle)."""
 

@@ -26,37 +26,27 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from voxtracer.core import pytree
 from voxtracer.core.types import MAT_NONE, SceneData
 from voxtracer.render.sky import sample_sky
 
 F32 = jnp.float32
 BIG = 1e34
 
-# rematerialize the march in backward: ~2x HBM savings for ~1 extra forward
-# of compute — including a SECOND per-sample cell-row gather (~5 ns/row).
+# rematerialize the march in backward: less device memory for one extra
+# forward of compute — including a SECOND per-sample cell-row gather.
 # Applies to the DENSE scan path only (span_steps == 0); the step-batched
 # span march bounds its activations by chunking over step sub-segments
-# (_SEG_CHUNK) instead.  At 1M-ray band sizes the stored-activation
-# variant fits HBM and skips that re-gather; default OFF, flip on via
-# VOXTRACER_DIFF_REMAT=1 when optimizing at full-frame band sizes.
+# (_SEG_CHUNK) instead.  At band sizes whose stored activations fit, the
+# default (OFF) skips that re-gather; flip on via VOXTRACER_DIFF_REMAT=1
+# when optimizing at full-frame band sizes.
 import os as _os
 
 _REMAT = _os.environ.get("VOXTRACER_DIFF_REMAT", "0") == "1"
 
-# profiling-only ablations (scripts/bench_bwd3.py): zero out one adjoint
-# path / skip one forward stage to measure its share of grad time.
-# NEVER set outside profiling.
-_ABLATE_CELL_SCATTER = False
-_ABLATE_BSIG_ADJ = False
-_ABLATE_CLAMP = False   # skip the transmittance-clamp nearest pass
-_ABLATE_SPANS = False   # use raw AABB intervals instead of occupied spans
-_ABLATE_CELL_FETCH = False  # constant rows instead of the per-cell gather
-_ABLATE_ALB_FETCH = False   # constant albedo instead of the per-step lookup
 
-
-@struct.dataclass
+@pytree.dataclass
 class DiffParams:
     """The trainable leaves."""
 
@@ -73,19 +63,14 @@ def params_from_scene(scene: SceneData, occupied_logit=6.0, empty_logit=-6.0) ->
 
 @jax.custom_vjp
 def _rows(table, idx):
-    """Row gather whose table-cotangent uses the MXU instead of scatter.
+    """Row gather whose table-cotangent is a one-hot matrix product
+    instead of a scatter.
 
     The natural adjoint of take(axis=0) into a tiny [256, 3] table is a
-    scatter-add with ~100% index collisions (~9 ns/row measured); the
-    one-hot matmul accumulation costs ~2.5 ns/row and is exact in f32.
-    Forward is the Pallas VMEM lookup on TPU (~0.1 vs ~5 ns/row): the
-    per-step albedo takes alone were ~55 ms/band at 1080p (round 3)."""
-    if _ABLATE_ALB_FETCH:
-        return jnp.broadcast_to(table[0] * 0.0 + idx[:, None] * 0.0 + 0.5,
-                                (idx.shape[0], table.shape[1]))
-    from voxtracer.kernels.lookup import lookup_rows
-
-    return lookup_rows(table, idx)
+    scatter-add with nearly every index colliding; the one-hot product
+    accumulates the same sums with no atomics.  Forward is XLA's take,
+    which fuses into its consumer."""
+    return jnp.take(table, idx, axis=0, mode="clip")
 
 
 def _rows_fwd(table, idx):
@@ -94,11 +79,10 @@ def _rows_fwd(table, idx):
 
 def _rows_bwd(res, ct):
     idx, t = res
-    # bf16 one-hot + cotangent with f32 MXU accumulation: the one-hot is
-    # exact in bf16 (0/1) and the [rows, 256] materialization halves its
-    # HBM traffic (round-4 trace: ~15 ms of the 149 ms backward); ct
-    # rounds to ~0.4% relative — table-gradient noise well under the FD
-    # test tolerances, and the density-gradient cosine guard is untouched
+    # bf16 one-hot + cotangent with f32 accumulation: the one-hot is exact
+    # in bf16 (0/1) and the [rows, 256] materialization moves half the
+    # bytes; ct rounds to 2^-8 relative — table-gradient noise well under
+    # the FD test tolerances (tests/test_rows_grad.py)
     oh = (idx[:, None] == jnp.arange(t, dtype=idx.dtype)[None, :]).astype(
         jnp.bfloat16)
     return jnp.dot(oh.T, ct.astype(jnp.bfloat16),
@@ -110,13 +94,10 @@ _rows.defvjp(_rows_fwd, _rows_bwd)
 
 @jax.custom_vjp
 def _bsig_rows(bsig, idx):
-    """Per-brick mean-sigma gather [V*M^3] -> [N]: Pallas VMEM lookup
-    forward (the 1-D take cost ~7 ns/row, ~28 ms/band over the lead/tail
-    segments), one-hot MXU accumulation backward (2.7 vs 8.7 ns/row for
-    the duplicate-heavy scatter)."""
-    from voxtracer.kernels.lookup import lookup_rows
-
-    return lookup_rows(bsig[:, None], idx)[:, 0]
+    """Per-brick mean-sigma gather [V*M^3] -> [N]: XLA take forward,
+    one-hot product backward in place of the duplicate-heavy scatter
+    (see _rows)."""
+    return jnp.take(bsig, idx, mode="clip")
 
 
 def _bsig_rows_fwd(bsig, idx):
@@ -125,8 +106,6 @@ def _bsig_rows_fwd(bsig, idx):
 
 def _bsig_rows_bwd(res, ct):
     idx, t = res
-    if _ABLATE_BSIG_ADJ:
-        return jnp.zeros((t,), ct.dtype) + jnp.sum(ct) * 0.0, None
     # bf16 one-hot, f32 accumulate (see _rows_bwd)
     oh = (idx[:, None] == jnp.arange(t, dtype=idx.dtype)[None, :]).astype(
         jnp.bfloat16)
@@ -143,10 +122,9 @@ def _perm_rows(x, idx, inv_idx):
     """Row gather by a PERMUTATION (the active-ray un-compaction).
 
     XLA cannot see that idx is bijective, so the autodiff adjoint of
-    take(x, idx) is a [N,3] row scatter-add — measured 40 ns/row
-    (41.6 ms/band at 1080p, the single hottest op in the round-3 grad
-    trace).  The adjoint of a bijective gather is just the gather by the
-    inverse permutation (~5 ns/row): y_i = x[idx_i]  =>  dx = ct[inv_idx]."""
+    take(x, idx) is a [N,3] row scatter-add.  The adjoint of a bijective
+    gather is just the gather by the inverse permutation:
+    y_i = x[idx_i]  =>  dx = ct[inv_idx]."""
     return jnp.take(x, idx, axis=0)
 
 
@@ -165,12 +143,8 @@ _perm_rows.defvjp(_perm_rows_fwd, _perm_rows_bwd)
 @jax.custom_vjp
 def _cell_fetch(dens_flat, cell_tab, idx):
     """[T,2] row gather (density, material) whose density-adjoint is a 1-D
-    scatter: a [N,2]-row scatter-add costs 41 ns/row on this chip, the 1-D
-    scalar scatter 7.5 ns (PERF_NOTES.md); the material column never needs
-    a gradient."""
-    if _ABLATE_CELL_FETCH:
-        return jnp.broadcast_to(cell_tab[0] * 0.0 + idx[:, None] * 0.0
-                                + 1.0, (idx.shape[0], 2))
+    scalar scatter instead of a [N,2]-row scatter-add; the material column
+    never needs a gradient."""
     return jnp.take(cell_tab, idx, axis=0, mode="clip")
 
 
@@ -180,8 +154,6 @@ def _cell_fetch_fwd(dens_flat, cell_tab, idx):
 
 def _cell_fetch_bwd(res, ct):
     idx, t = res
-    if _ABLATE_CELL_SCATTER:
-        return jnp.zeros((t,), ct.dtype) + jnp.sum(ct[:, 0]) * 0.0, None, None
     ci = jnp.clip(idx, 0, t - 1)
     d_dens = jnp.zeros((t,), ct.dtype).at[ci].add(ct[:, 0])
     return d_dens, None, None
@@ -205,10 +177,9 @@ def _occupied_spans(scene: SceneData, vox, voy, voz, vdx, vdy, vdz):
     """Per-pair [V, N] (s0, s1): the t-range of OCCUPIED-brick crossings
     along each object-space ray, via slab tests against MACRO GROUPS of
     bricks (2x2x2 bricks per group -> 64 tight AABBs per 8^3 brick grid
-    instead of 512 per-brick tests — the round-3 trace put this pass at
-    ~20 GB of [N, chunk] HBM traffic per band; grouping cuts the slab
-    rows 8x).  Each group's AABB is tight around its OCCUPIED bricks
-    (per-axis min/max), so spans only widen by intra-group gaps (<=1
+    instead of 512 per-brick tests: the [N, chunk] slab rows are this
+    pass's memory traffic, and grouping cuts them 8x).  Each group's AABB
+    is tight around its OCCUPIED bricks (per-axis min/max), so spans only widen by intra-group gaps (<=1
     brick) vs the exact per-brick test; wider spans stay CORRECT — the
     core march just covers a few more statically-empty cells — and the
     transmittance clamp bounds the tail regardless.
@@ -300,9 +271,8 @@ def active_ray_permutation(scene: SceneData, cfg, row0: int = 0,
     AABB first.  Rays outside every AABB render exactly the background, so
     the march (cell gathers, scatters, lead/tail brick scans, clamp pass —
     ALL of which cost per-row) runs only on the active prefix: the diff
-    march is gather/scatter-floor-bound at ~11 ns/row fwd+bwd
-    (scripts/probe_march.py), so rows are the ONLY lever.  monu 1080p:
-    40% of rays (75% in the sky band) drop.  Derived from camera +
+    march's cost is per sampled row, so rows are the lever, and on monu
+    the sky rays drop out.  Derived from camera +
     instance transforms only — loop-invariant across optimizer steps
     (like the occupancy spans); recompute when the camera moves.
 
@@ -332,7 +302,7 @@ def active_ray_permutation(scene: SceneData, cfg, row0: int = 0,
         t1 = np.nanmin(np.maximum(a, b), axis=1)
         valid |= t1 > t0
     # secondary key: 8x128-pixel tile id, so the active prefix lands in
-    # spatially-compact Pallas blocks for the in-march transmittance-clamp
+    # spatially-compact traversal blocks for the in-march transmittance-clamp
     # nearest pass (same lockstep-tail cut as cfg.ray_order="tile")
     if cfg.width % 128 == 0:
         yi, xi = py.reshape(-1).astype(np.int64), px.reshape(-1).astype(np.int64)
@@ -350,11 +320,11 @@ def span_cells_bins(scene: SceneData, cfg, row0: int = 0, rows: int = 0,
                     edges=(4.0, 32.0)):
     """HOST-side: split the ACTIVE rays of a band into span-length bins.
 
-    The clamped core span is strongly bimodal at bench settings (p50 0.4
-    cells, p90 ~100 — floor hits vs rays grazing whole building boxes), so
-    a fixed n_steps oversamples half the rays and pays their gather/
-    scatter rows for nothing: rows = n_steps x active rays is the
-    backward's dominant cost (round-4 trace: 200 of 362 ms).  Binning by a
+    The clamped core span is strongly bimodal at bench settings (floor
+    hits under a cell vs rays grazing whole model boxes), so a fixed
+    n_steps oversamples half the rays and pays their gather/scatter rows
+    for nothing: rows = n_steps x active rays is the backward's dominant
+    cost.  Binning by a
     cheap span ESTIMATE (sum over volumes of the occupied-AABB crossing
     length in cells — NumPy slab tests, camera-derived, loop-invariant)
     lets each bin march with a step count proportional to its spans.
@@ -364,7 +334,7 @@ def span_cells_bins(scene: SceneData, cfg, row0: int = 0, rows: int = 0,
     rays in the prefix (in 8x128-tile order, see active_ray_permutation)
     so the existing compaction path applies unchanged.  Callers MUST key
     step counts / clamp off bin_index, not list position: empty bins are
-    skipped, so position alone would mis-assign settings (ADVICE r4).
+    skipped, so position alone would mis-assign settings.
     Gradients of the per-bin renders SUM to the full-band gradient:
     excluded-active rays render as background in the other bins' calls
     and contribute zero parameter gradient there."""
@@ -462,8 +432,8 @@ def render_diff(params: DiffParams, scene: SceneData, cfg, key, n_steps: int = 1
     (_occupied_spans); the leading/trailing statically-empty segments
     march span_steps samples each at BRICK granularity against the
     per-brick mean sigma (_brick_mean_sigma, dense adjoint).  The sampled
-    rows — the gather/scatter traffic that dominates fwd+bwd (measured
-    4.4/6.9 ns per row, scripts/probe_scatter.py) — drop by the span
+    rows — the gather/scatter traffic that dominates fwd+bwd — drop by the
+    span
     ratio at equal effective sampling density."""
     from voxtracer.render.camera import primary_rays
     from voxtracer.render.integrator import _pixel_grid
@@ -513,10 +483,10 @@ def render_diff_active(params: DiffParams, scene: SceneData, cfg, o, d, bg,
     active rays of a bin (span_cells_bins) and bg their pre-sampled sky —
     all camera-derived, loop-invariant across optimizer steps.  Keeping
     them outside the grad step removes the per-step un-compaction
-    gathers, sky texture takes, and ray-compaction takes the round-4
-    trace measured at ~60 ms of the 237 ms backward (the un-compacted
-    image is a DISPLAY product, not a gradient dependency: every excluded
-    pixel contributes a parameter-free constant to the loss)."""
+    gathers, sky texture takes, and ray-compaction takes (the
+    un-compacted image is a DISPLAY product, not a gradient dependency:
+    every excluded pixel contributes a parameter-free constant to the
+    loss)."""
     color, t_total, valid = _march_color(params, scene, cfg, o, d, n_steps,
                                          density_scale, k, span_steps, clamp,
                                          spans=spans, importance=importance)
@@ -534,8 +504,8 @@ def _march_color(params: DiffParams, scene: SceneData, cfg, o, d,
     v = scene.volumes.n
     g = scene.volumes.pad_size
 
-    # SoA component layout throughout the march (PERF_NOTES.md: trailing
-    # dim 3 wastes the VPU) + fused per-step gather over all volumes.
+    # SoA component layout throughout the march (no trailing dim of 3)
+    # + fused per-step gather over all volumes.
     inv = scene.volumes.inv  # [V, 4, 4]
 
     def tr(row, px_, py_, pz_, point):
@@ -569,10 +539,7 @@ def _march_color(params: DiffParams, scene: SceneData, cfg, o, d,
     hit = t1 > t0
 
     if span_steps:
-        if _ABLATE_SPANS:
-            s0_all = jnp.where(hit, t0, BIG)
-            s1_all = jnp.where(hit, t1, -BIG)
-        elif spans is not None:
+        if spans is not None:
             # PRECOMPUTED [V, N] occupied spans: they derive from the
             # static occupancy + the (loop-invariant) compacted rays, so
             # training steps hoist the slab pass out of the grad
@@ -583,7 +550,7 @@ def _march_color(params: DiffParams, scene: SceneData, cfg, o, d,
                                              vdz)
 
     # Each pair marches its OWN [t0, t1] interval (n_steps samples per
-    # volume crossing, not per union span): 6-10x finer effective sampling
+    # volume crossing, not per union span): much finer effective sampling
     # for the same gather/scatter traffic, and rays wasting steps in the
     # gaps between instance AABBs vanish.  Volumes composite front-to-back
     # by entry t after the march (exact for AABBs disjoint along the ray —
@@ -652,8 +619,8 @@ def _march_color(params: DiffParams, scene: SceneData, cfg, o, d,
         dt = jnp.where(hit, (s1c - s0c) / n_steps, 0.0)
     dens_flat = (jax.nn.softplus(params.density_logits).reshape(-1)
                  * density_scale)  # [V * G^3]
-    # fuse per-cell fetches into ONE 2-D row gather: a [T, 2] row costs
-    # ~2.6 ns total vs 2 x 7.2 ns for 1-D takes (PERF_NOTES.md); column 0
+    # fuse per-cell fetches into ONE 2-D row gather instead of two 1-D
+    # takes; column 0
     # carries the differentiable density, column 1 the material id (f32 —
     # exact for ids <= 255).  The VJP scatters rows back into the stack
     # and the material column's cotangent is discarded by the slice.
@@ -709,13 +676,11 @@ def _march_color(params: DiffParams, scene: SceneData, cfg, o, d,
         # transmittance-bounded upper clamp: behind the hard first hit the
         # prefix transmittance is <= exp(-sigma_min_occupied * margin), so
         # samples past t_hit + margin carry ~1e-6 of the pixel — clamp the
-        # core there (one volumes-only nearest pass; Pallas on TPU).
+        # core there (one volumes-only nearest pass).
         # margin derives from the CURRENT minimum occupied density
         # (stop-gradient), so unsaturated parameter states fall back
         # toward the full span gracefully.
-        from voxtracer.render.integrator import (_pallas_occ_args,
-                                                 _occ_args, _use_pallas,
-                                                 _vol_args)
+        from voxtracer.render.integrator import _traverse
 
         occ_cells = scene.volumes.grids.reshape(-1) != MAT_NONE
         sig_min = jax.lax.stop_gradient(
@@ -724,21 +689,12 @@ def _march_color(params: DiffParams, scene: SceneData, cfg, o, d,
         margin = 13.8 / jnp.maximum(sig_min, 1e-6) + 1e-3
         ven = jnp.ones(v, bool)
         tlim = jnp.full(n, BIG, F32)
-        if _ABLATE_CLAMP or not clamp:
+        if not clamp:
             # clamp=False: short-span callers (span_cells_bins bin S) skip
             # the nearest pass — their spans are already a few cells wide
             rec = dict(hit=jnp.zeros(n, bool), t=tlim)
-        elif _use_pallas(scene):
-            from voxtracer.kernels.pallas_dda import traverse_pallas
-
-            rec = traverse_pallas(*_vol_args(scene), o, d, tlim, valid, ven,
-                                  **_pallas_occ_args(scene), mode="nearest")
         else:
-            from voxtracer.kernels import dda_occ
-
-            rec = dda_occ.traverse_occ_topk(
-                *_vol_args(scene), o, d, tlim, valid, ven,
-                **_occ_args(scene), mode="nearest", k=min(2, v))
+            rec = _traverse(scene, o, d, tlim, valid, ven, "nearest")
         t_bound = jnp.where(rec["hit"], rec["t"] + margin, BIG)
         u1 = jnp.minimum(u1, jnp.maximum(t_bound, u0))
 
@@ -762,23 +718,20 @@ def _march_color(params: DiffParams, scene: SceneData, cfg, o, d,
             # integral: od_k = sigma(t_k) * dt_k with dt_k = (dt/dc) *
             # (total/S) — the inverse-CDF change of variables.  Why:
             # fine-structure voxels (thin walls at monu's g=64) fall
-            # BETWEEN uniform nodes when the span is long — per-volume
-            # grad cosine vs the 48-step reference is ~0.5 at official
-            # settings (GRAD_PARITY_r05); concentrating nodes in occupied
-            # bricks raises effective resolution at unchanged row count.
+            # BETWEEN uniform nodes when the span is long, which lowers the
+            # per-volume grad cosine vs the 48-step reference;
+            # concentrating nodes in occupied bricks raises effective
+            # resolution at unchanged row count.
             # Cost: 2 probe row-gathers per pair, forward-only.
             bsig_sg = jax.lax.stop_gradient(bsig)
-            # threshold choice (both measured, scripts/probe_importance.py
-            # at 256x144 monu): empty cells still carry
-            # softplus(empty_logit)*scale (~1.3 at bench params), so the
-            # 1e-6 threshold marks every INSIDE probe occupied and the
-            # profile skips only inter-volume gaps in the union core —
-            # per-volume cosines 0.547/0.598/0.532 vs official
-            # 0.521/0.499/0.517.  A relative threshold (4x global brick
-            # minimum) additionally skips intra-volume air but measured
-            # WORSE (0.531/0.553/0.496): P=8 probes are too coarse to see
-            # thin-matter bricks and divert nodes off them.  Keep the
-            # inside-profile variant.
+            # threshold choice: empty cells still carry
+            # softplus(empty_logit)*scale, so the 1e-6 threshold marks
+            # every INSIDE probe occupied and the profile skips only
+            # inter-volume gaps in the union core.  A relative threshold
+            # (a multiple of the global brick minimum) additionally skips
+            # intra-volume air but aligned worse with the reference: P=8
+            # probes are too coarse to see thin-matter bricks and divert
+            # nodes off them.
             thr = jnp.float32(1e-6)
             segl = (u1 - u0) / imp                       # [N]
             pj = (jnp.arange(imp, dtype=F32) + 0.5)[:, None]
@@ -829,10 +782,8 @@ def _march_color(params: DiffParams, scene: SceneData, cfg, o, d,
         else:
             t_tab = dt_tab = None
 
-        # STEP-BATCHED march (round 3): the sequential lax.scan over steps
-        # cost ~4.7 ms/step at 262 K rays — pure loop/launch structure, not
-        # gathers (every fetch/adjoint ablation measured ~0 delta,
-        # scripts/bench_bwd3.py).  Front-to-back compositing is
+        # STEP-BATCHED march: a sequential lax.scan over steps pays loop
+        # and launch structure per step.  Front-to-back compositing is
         # order-free in log space: the prefix product of (1-alpha_j) =
         # exp(-sum_j od_j), so ONE exclusive cumsum over a [S, N] batch
         # replaces the scan, forward and backward both.
@@ -854,7 +805,7 @@ def _march_color(params: DiffParams, scene: SceneData, cfg, o, d,
         # seg_composite composes associatively, so the batched march runs
         # in step chunks of <= _SEG_CHUNK: intermediates stay [C, N]
         # instead of [n_steps, N] (an n_steps=192 full-frame call would
-        # otherwise materialize ~150 GB of [S*N] gather rows — ADVICE r3)
+        # otherwise materialize far more [S*N] gather rows than fit)
         _SEG_CHUNK = 32
 
         def core_chunk(carry, k0, ksteps):
@@ -977,7 +928,7 @@ def mse_loss_active(params: DiffParams, scene: SceneData, cfg, o, d, bg,
     n_active > 0 zero-masks rows >= n_active: callers pad the compacted
     prefix to a 1024 multiple, and the pad rows can be FOREIGN rays
     active in another bin — without the mask their gradient would be
-    double-counted across bins (ADVICE r4)."""
+    double-counted across bins."""
     img = render_diff_active(params, scene, cfg, o, d, bg, n_steps,
                              k=k, span_steps=span_steps, clamp=clamp,
                              spans=spans, importance=importance)
@@ -991,8 +942,10 @@ def spans_for_rays(scene: SceneData, o, d):
     """Occupied-brick spans [V, N] (s0, s1) for arbitrary world rays —
     the precomputable input of render_diff_active(spans=...)."""
     inv = scene.volumes.inv
-    vo = jnp.einsum("vij,nj->vni", inv[:, :3, :3], o) + inv[:, None, :3, 3]
-    vd = jnp.einsum("vij,nj->vni", inv[:, :3, :3], d)
+    hi = jax.lax.Precision.HIGHEST
+    vo = (jnp.einsum("vij,nj->vni", inv[:, :3, :3], o, precision=hi)
+          + inv[:, None, :3, 3])
+    vd = jnp.einsum("vij,nj->vni", inv[:, :3, :3], d, precision=hi)
     return _occupied_spans(scene, vo[:, :, 0], vo[:, :, 1], vo[:, :, 2],
                            vd[:, :, 0], vd[:, :, 1], vd[:, :, 2])
 

@@ -1,15 +1,16 @@
 """Device meshes + sharded rendering (SURVEY.md §2 #17, §5).
 
 The reference's only parallelism is a scanline `for_each(par)` + AVX2
-packets (renderer.cpp:1662-1673).  The TPU-native redesign:
+packets (renderer.cpp:1662-1673).  Here:
 
  * **rays** axis (data parallel): the pixel/ray batch shards across all
-   devices — each chip traces its tile rows; the scene (grids, materials,
+   devices — each device traces its rows; the scene (grids, materials,
    lights, sky) is replicated.  No collective is needed in the forward
-   pass because pixels are disjoint (tile sharding, SURVEY.md §5).
+   pass because pixels are disjoint (tile sharding, SURVEY.md §5).  The
+   traversal kernel runs per ray shard (kernels/dda_gpu.ray_sharding).
  * **grid** axis (tensor-parallel analogue): for worlds larger than one
-   chip's HBM the volume batch dimension V can shard; forward gathers ride
-   ICI via XLA's SPMD partitioner.
+   device's memory the volume batch dimension V can shard; forward
+   gathers go through XLA's SPMD partitioner.
  * gradients: with replicated parameters and sharded rays, XLA inserts the
    `psum` all-reduce over parameter gradients automatically in the backward
    of a sharded-jit loss (dist/train.py).
@@ -89,5 +90,8 @@ def render_sharded(scene, cfg, key, spp: int, mesh: Mesh):
                               jnp.arange(spp))
         return acc / spp
 
-    flat = run(scene, px, py, key, spp)
+    from voxtracer.kernels.dda_gpu import ray_sharding
+
+    with ray_sharding(mesh, mesh.axis_names[0]):
+        flat = run(scene, px, py, key, spp)
     return flat[:n].reshape(h, w, 3)

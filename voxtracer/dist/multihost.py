@@ -2,10 +2,10 @@
 "distributed communication backend" — the reference has none; its only
 parallelism is OS threads).
 
-On a TPU pod slice each host owns a subset of chips; `init()` wires
+On a multi-host cluster each host owns a subset of devices; `init()` wires
 `jax.distributed`, and `host_tile_bounds` assigns each host a contiguous
 row band of the image (tile sharding avoids any forward-pass collective —
-pixels are disjoint; gradient psum in the backward rides ICI/DCN via the
+pixels are disjoint; gradient psum in the backward crosses hosts via the
 sharded train step, dist/train.py)."""
 
 from __future__ import annotations

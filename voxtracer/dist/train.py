@@ -1,10 +1,10 @@
 """Sharded differentiable-rendering train step.
 
-Parallelism layout (SURVEY.md §2 #17 TPU disposition):
+Parallelism layout (SURVEY.md §2 #17):
   * 'data' axis — rays/pixels sharded (the reference's scanline for_each
     becomes mesh data-parallelism);
   * 'model' axis — voxel density grids spatially sharded (the TP-analogue
-    for worlds larger than one chip's HBM).
+    for worlds larger than one device's memory).
 Parameters replicated across 'data'; XLA inserts the gradient psum
 all-reduce automatically in the backward pass of the sharded jit —
 the reference has no distributed backend at all (SURVEY.md §5).
@@ -21,6 +21,7 @@ import optax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from voxtracer.diff.volumetric import DiffParams, render_diff
+from voxtracer.kernels.dda_gpu import ray_sharding
 
 
 def make_mesh_2d(n_devices: int | None = None) -> Mesh:
@@ -55,11 +56,16 @@ def make_train_step(cfg, mesh: Mesh, n_steps: int = 64, lr: float = 1e-2):
         return jnp.mean((img - target) ** 2)
 
     @jax.jit
-    def step(params, opt_state, scene, target, key):
+    def sharded_step(params, opt_state, scene, target, key):
         loss, grads = jax.value_and_grad(loss_fn)(params, scene, target, key)
         updates, opt_state = opt.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
         return params, opt_state, loss
+
+    def step(*args):
+        # any traversal kernel in the step runs per 'data' shard of rays
+        with ray_sharding(mesh, "data"):
+            return sharded_step(*args)
 
     def init(params):
         return opt.init(params)

@@ -1,6 +1,6 @@
 """Pure-NumPy MagicaVoxel ``.vox`` parser.
 
-TPU-native replacement for the reference's ogt_vox-based loader
+Pure-Python replacement for the reference's ogt_vox-based loader
 (reference: scene.cpp:449-683 + lib/ogt_vox.h).  The output is a pair of
 arrays — a dense color-index grid and a 256-entry RGBA palette — ready to be
 turned into device arrays; no C++ object graph, no global mutation.
@@ -129,7 +129,7 @@ def load_vox(path: str, prefer_native: bool = True) -> VoxModel:
     """Load the first model of a .vox file (reference uses models[0] only).
 
     Uses the C++ parser (native/voxio.cpp) when built — bit-identical
-    output, ~10x faster on large models — falling back to pure Python."""
+    output, faster on large models — falling back to pure Python."""
     with open(path, "rb") as f:
         data = f.read()
     if prefer_native:

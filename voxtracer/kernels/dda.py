@@ -1,22 +1,20 @@
 """Wavefront 3D-DDA (Amanatides–Woo) traversal — batched, masked, jittable.
 
-TPU-native redesign of the reference's scalar per-ray DDA loops
+Array-program redesign of the reference's scalar per-ray DDA loops
 (Scene::FindNearest / FindNearestExcept / FindMaterialExit / FindSmokeExit /
-IsOccluded, scene.cpp:719-1047).  Design drivers (measured on the target
-chip, see PERF_NOTES.md):
+IsOccluded, scene.cpp:719-1047).  Design drivers:
 
  * **SoA component layout** — every ray quantity is a flat array per
-   x/y/z component, never [..., 3]: TPU vector registers are (8, 128)
-   tiles, so a trailing dim of 3 wastes ~97% of the VPU (measured 35x).
+   x/y/z component, never [..., 3].
  * **Volume-fused traversal** — all V instances traverse together in one
    `lax.while_loop` over ray x volume pairs (shape [V, N]) instead of the
    reference's sequential per-volume loop: iteration count = max over
-   volumes, and the fixed per-iteration overhead (~0.6 ms here) is paid
-   once for the whole scene.
+   volumes, and the fixed per-iteration overhead is paid once for the
+   whole scene.
  * **One gather per step** — cell fetches hit the concatenation of all
-   volume grids; gathers are the scalar-unit bottleneck (~9 ns/index).
- * **Step unrolling** — UNROLL DDA steps per loop iteration; dozens of
-   fused VPU ops per iteration are free next to the iteration overhead.
+   volume grids.
+ * **Step unrolling** — UNROLL DDA steps per loop iteration, so the
+   fused elementwise work amortizes the iteration overhead.
 
 Semantics parity notes:
  * Axis selection replicates the reference's nested branches *including*

@@ -1,24 +1,24 @@
 """Occupancy-bitmask wavefront DDA — the gather-starved traversal.
 
-Second-generation traversal kernel (same semantics as kernels/dda.py's
-brick variant, which remains the oracle-adjacent fallback for the dynamic
-skip-range modes).  Motivation, measured on the target chip (PERF_NOTES.md):
+Second-generation traversal (same semantics as kernels/dda.py's brick
+variant, which remains the oracle-adjacent fallback for the dynamic
+skip-range modes).  This is the XLA path: the CPU runs it, and it is the
+reference the GPU kernel (kernels/dda_gpu.py) is tested against.
 
- * ``jnp.take`` costs ~7 ns/index — the entire frame cost of the v1 kernel
-   is per-step cell gathers over all ray x volume pairs, lockstep to the
-   worst pair.
- * A 2-D **row gather** (``take(table[T,16], idx, axis=0)``) costs ~2.6 ns
-   per index *total* — one fetch returns 16 int32 = the full 512-bit
-   occupancy of an 8^3 brick.
- * Register bit tests + a 16-way where-tree select cost ~0.1 ns/ray — so
-   once a brick's bits are in vector registers, *cell stepping is free*.
+ * The v1 kernel's cost is per-step cell gathers over all ray x volume
+   pairs, lockstep to the worst pair.
+ * A 2-D **row gather** (``take(table[T,16], idx, axis=0)``) returns 16
+   int32 = the full 512-bit occupancy of an 8^3 brick in one fetch.
+ * Register bit tests + a 16-way where-tree select are a few elementwise
+   ops — once a brick's bits are in registers, cell stepping needs no
+   gather.
 
 Loop structure: one outer iteration = ONE occupancy row fetch per pair
 (serving both levels: macro pairs test brick emptiness, fine pairs read
 their current brick's bits), then a macro DDA step for pairs over empty
 bricks, a descend for pairs entering occupied bricks, and up to INNER
-unrolled gather-free cell steps for fine pairs.  Gather traffic per pair
-drops from (cells crossed) x 7 ns to (bricks crossed) x 2.6 ns.
+unrolled gather-free cell steps for fine pairs.  Gathers per pair drop
+from one per cell crossed to one per brick crossed.
 
 Because the loop is lockstep, per-iteration cost is proportional to the
 PAIR COUNT, dead or alive.  ``traverse_occ_topk`` therefore compacts
@@ -57,12 +57,12 @@ from voxtracer.kernels.dda import (
     _setup,
 )
 
-INNER = 8  # gather-free fine steps per outer iteration (tuned on-chip)
+INNER = 8  # gather-free fine steps per outer iteration
 
 
 def _tree16(words, w):
     """Select words[w] per lane from 16 [P, N] arrays via a where-tree
-    (take_along_axis is ~200x slower here, PERF_NOTES.md)."""
+    (elementwise selects instead of a take_along_axis gather)."""
     sel = list(words)
     for k in range(4):
         bit = (w >> k) & 1
@@ -368,6 +368,19 @@ def traverse_occ(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
     )
 
 
+def volume_table(inv, fwd, cube_min, gridsize, bricksize):
+    """Packed per-volume constants [V, 26]: 12 inv, 9 fwd, 3 cube_min,
+    gridsize, bricksize."""
+    v = gridsize.shape[0]
+    return jnp.concatenate([
+        inv[:, :3, :].reshape(v, 12),
+        fwd[:, :3, :3].reshape(v, 9),
+        cube_min,
+        gridsize.astype(F32)[:, None],
+        bricksize.astype(F32)[:, None],
+    ], axis=1)
+
+
 def _entry_t(inv, cube_min, o, d):
     """Per-pair cube entry t [V, N] (BIG on miss) + the object rays dict —
     the candidate-selection key for top-K compaction."""
@@ -417,14 +430,7 @@ def traverse_occ_topk(grids_flat, gridsize, inv, fwd, cube_min, o, d,
     t0_sorted, id_sorted = jax.lax.sort((t0_all, ids), dimension=0,
                                         num_keys=1)
 
-    # packed per-volume constants: 12 inv + 9 fwd + 3 cube_min + gs + ms
-    vtab = jnp.concatenate([
-        inv[:, :3, :].reshape(v, 12),
-        fwd[:, :3, :3].reshape(v, 9),
-        cube_min,
-        gridsize.astype(F32)[:, None],
-        bricksize.astype(F32)[:, None],
-    ], axis=1)  # [V, 26]
+    vtab = volume_table(inv, fwd, cube_min, gridsize, bricksize)
 
     rounds = -(-v // k)
     tl = t_limit[None, :]

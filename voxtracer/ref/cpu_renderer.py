@@ -2,7 +2,7 @@
 
 This is the test oracle the reference never had (SURVEY.md §4): a direct
 scalar transcription of the reference's light transport in float32 NumPy.
-The jitted TPU integrators must allclose against it (exactly for the
+The jitted integrators must allclose against it (exactly for the
 deterministic modes, statistically for path tracing).
 
 Structure mirrors the reference call tree:

@@ -51,7 +51,6 @@ from voxtracer.render.integrator import (
     is_occluded_world,
     material_exit_world,
 )
-from voxtracer.kernels.lookup import lookup_rows
 from voxtracer.render.sky import sample_sky
 from voxtracer.render.tonemap import tonemap
 
@@ -76,10 +75,11 @@ def point_to_uv(cam: Camera, aspect: float, points):
     """PointToUV (camera.h:34-49): frustum-plane distance ratios."""
     ln, rn, tn, bn = frustum_normals(cam, aspect)
     delta = points - cam.pos
-    ld = delta @ ln
-    rd = delta @ rn
-    td = delta @ tn
-    bd = delta @ bn
+    hi = jax.lax.Precision.HIGHEST
+    ld = jnp.dot(delta, ln, precision=hi)
+    rd = jnp.dot(delta, rn, precision=hi)
+    td = jnp.dot(delta, tn, precision=hi)
+    bd = jnp.dot(delta, bn, precision=hi)
     return jnp.stack([ld / (ld + rd), td / (td + bd)], axis=-1)
 
 
@@ -115,15 +115,13 @@ def trace_reproject(scene: SceneData, cfg: RenderConfig, o, d, key):
         t, mat, nrm, vol = rec["t"], rec["mat"], rec["normal"], rec["vol"]
         in_glass = jnp.where(rec["prim_adopt"], rec["prim_inside"], st["in_glass"])
 
-        # one [256, 6] row lookup served from VMEM instead of four
-        # 2M-row HBM takes (~13 ms each at 1080p — the round-4 frame
-        # lesson trace_path already applies)
+        # one [256, 6] row lookup instead of four per-property takes
         mtab = jnp.concatenate(
             [scene.materials.albedo,
              scene.materials.roughness[:, None],
              scene.materials.emissive[:, None],
              scene.materials.ior[:, None]], axis=1)
-        mrow = lookup_rows(mtab, mat)
+        mrow = jnp.take(mtab, mat, axis=0, mode="clip")
         alb = mrow[:, 0:3]
         rough, emis, ior = mrow[:, 3], mrow[:, 4], mrow[:, 5]
 
@@ -392,8 +390,8 @@ def render_reproject_frame(scene: SceneData, cfg: RenderConfig,
     Returns (tonemapped image, new history, aux G-buffer dict).
 
     Rays are generated in 8x128-pixel-tile order when cfg.ray_order
-    allows (the same lockstep-tail cut every other frame path gets,
-    PERF_NOTES round-4) and the G-buffer un-tiles with one
+    allows (the same lockstep-tail cut every other frame path gets) and
+    the G-buffer un-tiles with one
     reshape/transpose per array before the resolve pass."""
     from voxtracer.render.camera import primary_rays
 

@@ -1,10 +1,10 @@
 """Instance (TLAS-input) assembly: volume specs -> batched VoxVolumes.
 
 The reference keeps `vector<Scene> voxelVolumes` and brute-force loops it
-per ray (renderer.cpp:946-1018).  The TPU design batches every instance into
-one [V, G, G, G] grid array + [V,4,4] transform stack so the traversal is a
-`lax.scan` over V with the full ray wavefront processed per step, and an
-AABB prefilter masks rays per instance (kernels/dda.py).
+per ray (renderer.cpp:946-1018).  Here every instance is batched into one
+[V, G, G, G] grid array + [V,4,4] transform stack, so one traversal walks
+all instances for the whole ray wavefront (kernels/dda_occ.py,
+kernels/dda_gpu.py).
 """
 
 from __future__ import annotations
@@ -102,44 +102,6 @@ def build_occupancy(grids: np.ndarray) -> np.ndarray:
     return out
 
 
-def build_palette_rows(grids: np.ndarray, nz: np.ndarray, bpad: int,
-                       mside: int):
-    """Per-volume material palette + packed 4-bit per-cell palette ranks.
-
-    grids: [V, G, G, G] material ids; nz: [V*M^3] occupied-brick mask in
-    the SAME slot space as occ_rows0; bpad: padded row count of occ_rows0.
-    Returns (pal [V,16] i32, pal_rows0 [bpad, 64] i32) — word w of a row
-    holds ranks of cells 8w..8w+7 (cell index (fx*8+fy)*8+fz, matching the
-    occupancy bit layout), 4 bits each, LSB-first.  Returns (None, None)
-    when any volume has >16 distinct materials (callers fall back to the
-    XLA grid take)."""
-    v, g = grids.shape[0], grids.shape[1]
-    g8 = mside * BRICK
-    pal = np.full((v, 16), MAT_NONE, np.int32)
-    ranks = np.zeros((v, g8, g8, g8), np.uint8)
-    for i in range(v):
-        u = np.unique(grids[i])
-        u = u[u != MAT_NONE]
-        if len(u) > 16:
-            return None, None
-        pal[i, :len(u)] = u
-        lut = np.zeros(256, np.uint8)
-        lut[u] = np.arange(len(u), dtype=np.uint8)
-        ranks[i, :g, :g, :g] = lut[np.asarray(grids[i], np.uint8)]
-    # brick-order cells: [V*M^3, 512]
-    p = (ranks.reshape(v, mside, BRICK, mside, BRICK, mside, BRICK)
-         .transpose(0, 1, 3, 5, 2, 4, 6)
-         .reshape(v * mside ** 3, BRICK ** 3).astype(np.int64))
-    rows = p[nz]  # occupied bricks only, aligned with occ_rows0 slots
-    w = rows.reshape(-1, 64, 8)
-    shifts = (np.int64(4) * np.arange(8, dtype=np.int64))[None, None, :]
-    words = (w << shifts).sum(axis=2).astype(np.uint32).astype(np.int64)
-    words = np.where(words >= 2 ** 31, words - 2 ** 32, words)
-    out = np.zeros((bpad, 64), np.int32)
-    out[:words.shape[0]] = words.astype(np.int32)
-    return pal, out
-
-
 def build_volumes(specs: list[VolumeSpec], pad_size: int | None = None) -> VoxVolumes:
     """Pad every instance grid to one static size and stack transforms."""
     if not specs:
@@ -164,7 +126,7 @@ def build_volumes(specs: list[VolumeSpec], pad_size: int | None = None) -> VoxVo
         f, iv = volume_transforms(s.position, s.scale, s.rotation, s.rot_mat4)
         fwd[i], inv[i] = f, iv
         cube_min[i] = np.asarray(s.position, np.float32)
-    vols = VoxVolumes(
+    return VoxVolumes(
         grids=grids.astype(np.int32),
         gridsize=gridsize,
         inv=inv,
@@ -174,30 +136,6 @@ def build_volumes(specs: list[VolumeSpec], pad_size: int | None = None) -> VoxVo
         bricksize=bricksize,
         occ=build_occupancy(grids),
     )
-    return compact_tables(vols)
-
-
-def compact_tables(vols: VoxVolumes) -> VoxVolumes:
-    """Compacted plane-0 occupancy rows + per-volume palettes for the
-    Pallas descend path (kernels/pallas_dda.py): occupied bricks only,
-    in (volume, brick) order, padded to a multiple of 128 rows."""
-    v = vols.n
-    mmax = vols.bricks.shape[1]
-    occ0 = np.asarray(vols.occ[0]).reshape(v * mmax ** 3, 16)
-    nz = (occ0 != 0).any(axis=1)
-    slots = np.zeros(occ0.shape[0], np.int32)
-    slots[nz] = np.arange(int(nz.sum()), dtype=np.int32)
-    rows0 = occ0[nz]
-    pad = (-rows0.shape[0]) % 128
-    if pad or rows0.shape[0] == 0:
-        rows0 = np.concatenate(
-            [rows0, np.zeros((pad or 128, 16), np.int32)], axis=0)
-    pal, pal_rows0 = build_palette_rows(np.asarray(vols.grids), nz,
-                                        rows0.shape[0], mmax)
-    return vols.replace(
-        pal=pal, pal_rows0=pal_rows0,
-        occ_slot=slots.reshape(v, mmax ** 3),
-        occ_rows0=rows0)
 
 
 def instance_world_aabbs(volumes: VoxVolumes):
@@ -216,77 +154,6 @@ def instance_world_aabbs(volumes: VoxVolumes):
         lo[i] = world.min(axis=0)
         hi[i] = world.max(axis=0)
     return lo, hi
-
-
-def paginate_volumes(vols: VoxVolumes, page: int = 24) -> VoxVolumes:
-    """Split a large instance set into pages of <= `page` volumes, each
-    with its own (short) compacted descend tables, stored on
-    `vols.pages`.  The Pallas traversal walks one page at a time and
-    min-merges — the per-fetch where-chain length scales with the PAGE's
-    table sizes, not the whole scene's, so the V<=64 VMEM-chain cliff
-    (VERDICT r2 item 3) goes away.
-
-    Volumes are first MORTON-REORDERED by world-AABB center (the parent
-    arrays and the pages alike — one consistent volume order, so the
-    XLA/oracle paths and vol ids agree), making every page a spatially
-    COMPACT cluster instead of a scene-order stripe: the per-ray page
-    culling in integrator._paged_traverse skips a page when no better hit
-    can exist in it, and compact page AABBs are what make that test
-    selective for spatially re-clustered bounce rays
-    (cfg.bounce_reorder).  The reorder is a scene-definition order
-    change: the earliest-volume tie-break now follows morton order
-    (exact-tie resolution only; all non-tied results are unchanged)."""
-    v = vols.n
-    if v <= page:
-        return vols
-    lo_w, hi_w = instance_world_aabbs(vols)
-    ctr = (lo_w + hi_w) * 0.5
-    cmin = ctr.min(axis=0)
-    span = np.maximum(ctr.max(axis=0) - cmin, 1e-6)
-    q = np.clip(((ctr - cmin) / span * 16.0).astype(np.int64), 0, 15)
-    morton = np.zeros(v, np.int64)
-    for bit in range(4):
-        for c in range(3):
-            morton |= ((q[:, c] >> bit) & 1) << (3 * bit + c)
-    perm = np.argsort(morton, kind="stable")
-    vols = vols.replace(
-        grids=np.asarray(vols.grids)[perm],
-        gridsize=np.asarray(vols.gridsize)[perm],
-        inv=np.asarray(vols.inv)[perm],
-        fwd=np.asarray(vols.fwd)[perm],
-        cube_min=np.asarray(vols.cube_min)[perm],
-        bricks=np.asarray(vols.bricks)[perm],
-        bricksize=np.asarray(vols.bricksize)[perm],
-        occ=np.asarray(vols.occ)[:, perm],
-    )
-    # the compacted descend tables were built in the old order — rebuild
-    vols = compact_tables(vols)
-    pages = []
-    sizes = []
-    for lo in range(0, v, page):
-        hi = min(lo + page, v)
-        sub = VoxVolumes(
-            grids=np.asarray(vols.grids)[lo:hi],
-            gridsize=np.asarray(vols.gridsize)[lo:hi],
-            inv=np.asarray(vols.inv)[lo:hi],
-            fwd=np.asarray(vols.fwd)[lo:hi],
-            cube_min=np.asarray(vols.cube_min)[lo:hi],
-            bricks=np.asarray(vols.bricks)[lo:hi],
-            bricksize=np.asarray(vols.bricksize)[lo:hi],
-            occ=np.asarray(vols.occ)[:, lo:hi],
-            vol_off=lo,
-        )
-        pages.append(compact_tables(sub))
-        # world AABB volume sum: |det(linear fwd)| x unit cube, per volume
-        fw = np.asarray(vols.fwd)[lo:hi, :3, :3]
-        sizes.append(float(np.abs(np.linalg.det(fw)).sum()))
-    # WALK order: biggest total world volume first (e.g. the city floor) —
-    # its hits tighten the running best t for nearly every ray, so the
-    # per-ray page culling in integrator._paged_traverse can skip the
-    # later pages wholesale.  Volume IDS keep scene order via vol_off; the
-    # merge's (t, original-id) tie-break makes walk order result-invariant.
-    order = np.argsort(-np.asarray(sizes), kind="stable")
-    return vols.replace(pages=tuple(pages[i] for i in order))
 
 
 def make_spheres(items=()) -> Spheres:

@@ -18,6 +18,7 @@ from voxtracer.render.camera import make_camera
 from voxtracer.scene.instances import VolumeSpec, build_volumes, make_spheres, make_triangles
 from voxtracer.scene.lights import make_lights
 from voxtracer.scene.materials import apply_palette_updates, default_materials
+from voxtracer.scene.procgen import monument_grid
 from voxtracer.scene.volume import grid_from_vox, solid_grid
 
 ASSET_DIR = os.environ.get("VOX_ASSETS", "/root/reference/assets")
@@ -71,8 +72,8 @@ def room_whitted(width=512, height=512, gridsize=128, glass=False):
     lights = make_lights(
         point=((0.5, 0.85, 0.5, 4.0, 4.0, 4.0), (0.15, 0.6, 0.2, 1.5, 1.5, 1.8)),
     )
-    # interior corner view (the round-1 camera sat OUTSIDE the room and
-    # photographed an unlit exterior wall — round-2 artifact finding)
+    # interior corner view (a camera OUTSIDE the room photographs an
+    # unlit exterior wall)
     cam = make_camera(pos=(0.15, 0.3, 0.15), target=(0.6, 0.1, 0.6),
                       aspect=width / height)
     scene = _assemble(vols, mats, lights=lights, camera=cam)
@@ -82,19 +83,28 @@ def room_whitted(width=512, height=512, gridsize=128, glass=False):
                        # BOTH room palettes map slot 8 (GLASS) — room.vox
                        # uses it for the floor (palette index = material id,
                        # scene.cpp:516); without the split those pixels
-                       # compile to black (round-2 artifact finding)
+                       # compile to black
                        whitted_glass_split=True)
     return scene, cfg
 
 
+MONU_SEED = 1729
+
+
 def monu_path(width=1920, height=1080, gridsize=64, which=(1, 2, 3), bounces=4,
               spp=1):
-    """Config 4: monu1-3.vox path traced with HDR sky."""
+    """Config 4: three monuments path traced with HDR sky.
+
+    A seeded stand-in for monu1-3.vox: each model volume is generated by
+    scene.procgen.monument_grid from MONU_SEED = 1729 (model `m` uses seed
+    1729 + 101 * m) at `gridsize`^3, so the scene needs no file from
+    outside the repository.  Positions, floor slab, light, camera, sky and
+    RenderConfig are those of the .vox configuration."""
     mats = default_materials()
     updates: dict = {}
     specs = []
     for i, m in enumerate(which):
-        grid = _load_grid(f"monu{m}.vox", gridsize, updates)
+        grid = monument_grid(gridsize, m, MONU_SEED, updates)
         specs.append(VolumeSpec(position=(float(i) * 0.75 - 0.75, 0.0, 0.0),
                                 gridsize=gridsize, grid=grid))
     # floor slab
@@ -111,7 +121,7 @@ def monu_path(width=1920, height=1080, gridsize=64, which=(1, 2, 3), bounces=4,
 
 
 def city_path(width=1920, height=1080, gridsize=64, nx=4, nz=4, bounces=4,
-              spp=1, vary_scale=False, page=24):
+              spp=1, vary_scale=False):
     """Config 5: grid of Small/Tall buildings — the TLAS/multi-instance
     stress scene."""
     mats = default_materials()
@@ -132,10 +142,6 @@ def city_path(width=1920, height=1080, gridsize=64, nx=4, nz=4, bounces=4,
     specs.append(VolumeSpec(position=(0.0, -0.51, 0.0), gridsize=1,
                             scale=(12.0, 0.02, 12.0), grid=solid_grid(1, 0)))
     vols = build_volumes(specs)
-    if len(specs) > 64:
-        from voxtracer.scene.instances import paginate_volumes
-
-        vols = paginate_volumes(vols, page=page)
     lights = make_lights(point=((0.0, 5.0, -4.0, 20.0, 20.0, 18.0),))
     cam = make_camera(pos=(-1.5, 1.6, -3.2), target=(0.0, 0.3, 0.0), aspect=width / height)
     scene = _assemble(vols, mats, lights=lights, sky=_sky(), camera=cam)
@@ -147,10 +153,8 @@ def city_path(width=1920, height=1080, gridsize=64, nx=4, nz=4, bounces=4,
 def city_xl_path(width=1920, height=1080, gridsize=64, bounces=4, spp=1):
     """Config 5 at its BLUEPRINT scale (BASELINE.md "full city"): an
     11x10 block grid = 110 building instances (all three models, 4
-    rotations, varied scales) + floor = 111 volumes.  Above the Pallas
-    V-cap the volume set is paged (scene/instances.paginate_volumes), so
-    traversal stays on the VMEM kernel instead of the XLA fallback; the
-    camera pulls back to frame the full grid.  Reference scale anchor:
+    rotations, varied scales) + floor = 111 volumes; the camera pulls
+    back to frame the full grid.  Reference scale anchor:
     renderer.h:213 runs 13-21 live volumes — this is the scale the
     reference's dormant BVH (renderer.h:220) was meant for."""
     scene, cfg = city_path(width=width, height=height, gridsize=gridsize,

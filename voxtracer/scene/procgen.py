@@ -97,6 +97,92 @@ def generate_noise_grid(gridsize: int, frequency: float = 0.03,
     return out
 
 
+def monument_grid(gridsize: int, which: int, seed: int,
+                  updates: dict | None = None) -> np.ndarray:
+    """A seeded voxel monument: stepped plinth, a carved body whose
+    silhouette depends on `which` (1 obelisk, 2 gate, 3 domed drum), and a
+    material mix that drives every traversal mode of a path-traced frame —
+    diffuse palette stone (ids 16+), METAL_* trim from the noise table,
+    a GLASS band (material exits), a SMOKE_* pocket open to the front
+    (smoke exits) and an EMISSIVE orb on top.
+
+    `updates` collects the palette albedos of the stone entries, like
+    grid_from_vox's material-table mutation (apply them with
+    scene.materials.apply_palette_updates).  Grid axes are [x, y, z] with
+    y up; the front face is low z."""
+    from voxtracer.scene.volume import emissive_sphere, solid_grid
+
+    g = gridsize
+    s = seed + 101 * which
+    rng = np.random.default_rng(s)
+    c = (np.arange(g, dtype=np.float32) + 0.5) / g
+    u, v, w = np.meshgrid(c, c, c, indexing="ij")
+    dx, dz = u - 0.5, w - 0.5
+    ring = np.maximum(np.abs(dx), np.abs(dz))
+    plinth = ((v < 0.12) & (ring < 0.46)) | ((v < 0.22) & (ring < 0.36))
+    kind = (which - 1) % 3
+    if kind == 0:  # tapered obelisk with a pyramidion
+        half = 0.22 - 0.16 * np.clip((v - 0.22) / 0.6, 0.0, 1.0)
+        body = (v < 0.82) & (ring < half)
+        cap = (v >= 0.82) & (ring < 0.06 + (0.92 - v) * 0.6) & (v < 0.92)
+        top = 0.95
+    elif kind == 1:  # gate: two pillars under a lintel
+        pillar = (np.abs(np.abs(dx) - 0.24) < 0.09) & (np.abs(dz) < 0.12)
+        body = (v < 0.72) & pillar
+        body |= (v >= 0.62) & (v < 0.76) & (np.abs(dx) < 0.36) & (
+            np.abs(dz) < 0.14)
+        cap = (v >= 0.76) & (v < 0.80) & (np.abs(dx) < 0.30) & (
+            np.abs(dz) < 0.10)
+        top = 0.84
+    else:  # drum under a hemispherical dome
+        r = np.sqrt(dx * dx + dz * dz)
+        body = (v < 0.55) & (r < 0.3)
+        cap = (v >= 0.55) & ((r * r + (v - 0.55) ** 2) < 0.3 ** 2)
+        top = 0.88
+    solid = plinth | body | cap
+
+    # carve windows and hollows into the upper mass (never the plinth)
+    n = perlin3((g,) * 3, 0.02, seed=s)
+    solid &= ~((n > 0.3) & (v > 0.25))
+
+    # stone: four palette entries per model, banded by height and noise
+    base_id = 16 + 4 * (which - 1)
+    stone = rng.uniform(0.35, 0.85, (4, 1)) * np.array(
+        [[1.0, 0.93, 0.8]], np.float32) + rng.uniform(-0.05, 0.05, (4, 3))
+    if updates is not None:
+        for k in range(4):
+            updates[base_id + k] = np.clip(stone[k], 0.0, 1.0).astype(
+                np.float32)
+    band = (np.floor(v * 7.0 + n * 3.0).astype(np.int32) % 4)
+    out = np.where(solid, base_id + band, MAT_NONE).astype(np.uint8)
+
+    # metal trim: the noise table's METAL_* cells on the plinth and cap
+    noise = generate_noise_grid(g, 0.03, seed=s)
+    metal = (noise >= METAL_HIGH) & (noise <= METAL_LOW)
+    trim = solid & (plinth & (v >= 0.1) | cap) & metal
+    out = np.where(trim, noise, out)
+    out = np.where(solid & cap & ~metal, METAL_LOW, out)
+
+    # glass band through the body
+    out = np.where(solid & body & (v >= 0.44) & (v < 0.52), GLASS, out)
+
+    # smoke pocket cut into the front of the body, filled from the smoke
+    # generator (densest cells kept, a low-density floor elsewhere)
+    pocket = ((dx * dx + (v - 0.36) ** 2 + (w - 0.28) ** 2) < 0.13 ** 2) & (
+        v > 0.22)
+    smoke = generate_smoke_grid(g, 0.167, seed=s)
+    smoke = np.where(smoke == MAT_NONE, SMOKE_LOW_DENSITY, smoke)
+    out = np.where(pocket, smoke, out)
+
+    # emissive orb above the summit
+    rad = max(1.5, 0.07 * g)
+    orb = emissive_sphere(solid_grid(g, MAT_NONE), EMISSIVE, rad) == EMISSIVE
+    shift = min(int(round((top - 0.5) * g)), int(g / 2 - 1 - rad))
+    orb = np.roll(orb, shift, axis=1)
+    out = np.where(orb, EMISSIVE, out)
+    return out.astype(np.uint8)
+
+
 def generate_smoke_grid(gridsize: int, frequency: float = 0.167,
                         seed: int = 0) -> np.ndarray:
     """GenerateSomeSmoke (scene.cpp:285-356): ellipsoid falloff with the

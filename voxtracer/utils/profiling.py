@@ -4,7 +4,7 @@ The reference's only observability is a Timer struct (precomp.h:162-182)
 and a per-frame running-average `ms / fps / MRays/s` printf
 (renderer.cpp:2208-2213).  Here: the same running-average frame reporter,
 plus structured counters and a `jax.profiler` trace context for real
-kernel-level profiling on TPU."""
+kernel-level profiling on the device."""
 
 from __future__ import annotations
 
